@@ -1,5 +1,5 @@
-# pcr-tpu container. For TPU VMs use the libtpu-enabled jax install; the
-# default build is the CPU backend (tests, CI, development).
+# pcr-tpu container. The default build is the CPU backend (tests, CI,
+# development); NVIDIA GPU hosts build with the JAX CUDA plugin.
 FROM python:3.12-slim
 
 RUN apt-get update && apt-get install -y --no-install-recommends \
@@ -9,7 +9,7 @@ WORKDIR /opt/pcr-tpu
 COPY . .
 
 ARG JAX_VARIANT=cpu
-# TPU machines: --build-arg JAX_VARIANT="tpu"
+# NVIDIA GPU hosts: --build-arg JAX_VARIANT="cuda12"
 RUN pip install --no-cache-dir "jax[${JAX_VARIANT}]" numpy pillow pytest \
     && pip install --no-cache-dir -e .
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Streaming Median/Percentile at 100M+ points with FLAT host RSS.
 
-VERDICT r2 #6: order statistics retained ~12 B/point in host RAM with no
-spill, breaking the streaming contract. CollectStream now spills sorted
+Order statistics would retain ~12 B/point in host RAM without a spill,
+breaking the streaming contract. CollectStream spills sorted
 runs at PCR_COLLECT_BUDGET and merges per cell range at finalize. This
 bench streams a LAS directory through a Median pipeline, sampling host
 RSS after every file; the artifact records peak vs budget.

@@ -1,25 +1,25 @@
 #!/usr/bin/env python
-"""Prove the persistent compile cache across PROCESSES (VERDICT r2 #9).
+"""Prove the persistent compile cache across PROCESSES.
 
-Round 2's billion-point artifact recorded warmup_s=480.5 — nearly all of
-it remote XLA/Mosaic compiles — without evidence that a second process on
-the same shapes skips it. This bench runs the same Pipeline.warmup in
-fresh subprocesses against the billion-point grid shapes (4000x4000, 1 m
-cells, Average + chunked ingest buckets):
+Runs the same Pipeline.warmup in fresh subprocesses against the
+billion-point grid shapes (4000x4000, 1 m cells, Average + chunked ingest
+buckets), all pointed at one fresh cache directory through
+JAX_COMPILATION_CACHE_DIR:
 
-  run 1: cold  — compile cache directory emptied first
+  run 1: cold  — empty cache directory
   run 2: warm  — same shapes, persistent cache populated by run 1
   run 3: warm  — repeat, to separate cache-hit cost from noise
 
-Done = warm-process warmup in seconds, not minutes.  Output:
-benchmark_results/warmup_persistence.json
+Done = warm-process warmup in seconds, not minutes. Prints one JSON object
+(and writes it to --json when given).
 """
 
+import argparse
 import json
 import os
-import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -52,10 +52,12 @@ print(f"WARMUP_S={{warm:.2f}} SETUP_S={{t0 - t_import:.2f}}")
 """
 
 
-def run_child():
+def run_child(cache):
     t0 = time.time()
+    env = dict(os.environ, JAX_COMPILATION_CACHE_DIR=cache)
     r = subprocess.run([sys.executable, "-c", CHILD.format(repo=REPO)],
-                       capture_output=True, text=True, timeout=3600)
+                       capture_output=True, text=True, timeout=3600,
+                       env=env)
     wall = time.time() - t0
     warm = None
     for line in r.stdout.splitlines():
@@ -68,25 +70,22 @@ def run_child():
 
 
 def main():
-    cache = os.environ.get("PCR_JAX_CACHE",
-                           os.path.expanduser("~/.cache/pcr_jax_cache"))
-    out = {"cache_dir": cache}
-    if os.environ.get("PCR_WARMUP_KEEP_CACHE", "0") != "1":
-        shutil.rmtree(cache, ignore_errors=True)
-    w, wall = run_child()
-    out["cold_warmup_s"] = round(w, 2)
-    out["cold_process_wall_s"] = round(wall, 2)
-    for i in (1, 2):
-        w, wall = run_child()
-        out[f"warm{i}_warmup_s"] = round(w, 2)
-        out[f"warm{i}_process_wall_s"] = round(wall, 2)
-    out["speedup"] = round(out["cold_warmup_s"]
-                           / max(out["warm1_warmup_s"], 1e-9), 1)
-    os.makedirs(os.path.join(REPO, "benchmark_results"), exist_ok=True)
-    path = os.path.join(REPO, "benchmark_results",
-                        "warmup_persistence.json")
-    with open(path, "w") as f:
-        json.dump(out, f, indent=2)
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--json", default="", help="also write the result here")
+    args = ap.parse_args()
+    with tempfile.TemporaryDirectory(prefix="pcr_jax_cache_") as cache:
+        out = {}
+        w, wall = run_child(cache)
+        out["cold_warmup_s"] = w
+        out["cold_process_wall_s"] = wall
+        for i in (1, 2):
+            w, wall = run_child(cache)
+            out[f"warm{i}_warmup_s"] = w
+            out[f"warm{i}_process_wall_s"] = wall
+    out["speedup"] = out["cold_warmup_s"] / max(out["warm1_warmup_s"], 1e-9)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(out, f, indent=2)
     print(json.dumps(out, indent=2))
 
 

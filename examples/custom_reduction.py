@@ -6,7 +6,7 @@ custom_op_prototype.py is "# TODO: implement"; its Custom enum value is
 reachable solely through the C++ compile-time template path,
 accumulator.cpp:61-99). This build registers custom ops at runtime from
 Python: define the op by its vectorized plan and it runs on the CPU
-oracle, the TPU engine, and multi-chip meshes alike.
+oracle, the device engine, and multi-device meshes alike.
 
 Example: per-cell RMS (root mean square) of the point values —
 state = (sum of v^2, count), finalized as sqrt(sum/count).

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Multi-chip ingest example — dp (points) x sp (grid rows) mesh sharding.
 
-Runs on real TPU pods or, for trying it out anywhere, on virtual CPU
+Runs on a multi-GPU host or, for trying it out anywhere, on virtual CPU
 devices:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \

@@ -13,7 +13,7 @@ an arc of line glyphs — so one image shows Point, Line, and Gaussian
 paths composited into a single raster via three ReductionSpecs.
 
     python examples/smiley_face.py                  # 200k pts, 512^2
-    python examples/smiley_face.py --points 5000000 --size 2048 --mode tpu
+    python examples/smiley_face.py --points 5000000 --size 2048 --mode gpu
 """
 import argparse
 import os
@@ -96,7 +96,7 @@ def build_cloud(n_total, world):
     return cloud
 
 
-MODES = {"auto": "Auto", "cpu": "CPU", "tpu": "GPU", "hybrid": "Hybrid"}
+MODES = {"auto": "Auto", "cpu": "CPU", "gpu": "GPU", "hybrid": "Hybrid"}
 
 
 def main():

@@ -3,7 +3,7 @@
 
 Lets code written against the reference library's Python bindings
 (reference: python/pcr/__init__.py) run unchanged: `import pcr` resolves to
-the TPU-native framework.
+the JAX framework.
 """
 from pcr_tpu import *          # noqa: F401,F403
 from pcr_tpu import __all__, __version__  # noqa: F401

@@ -1,7 +1,7 @@
 """
-PCR-TPU — Point Cloud Rasterization, TPU-native.
+PCR-TPU — Point Cloud Rasterization on JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework with the capabilities of the
 reference CUDA/C++ `pcr` library (BigHippo123/pointcloud-raster):
 reduce large 2-D point clouds onto regular geo-referenced raster grids.
 Each point scatters a value into one cell (Point glyph) or paints a
@@ -10,14 +10,15 @@ by a pluggable reduction op (Sum / Average / WeightedAverage / Max /
 Min / Count).  Large grids are tiled out-of-core with an LRU tile-state
 cache spilling to disk, and final rasters are written as GeoTIFF.
 
-TPU-native design (vs. the reference's CUDA atomic scatter):
-  * scatter is contention-free **matmul scatter** on the MXU — a block of
-    points writes into the grid as one (H x B) @ (B x W) one-hot matmul;
-    Gaussian footprints are *separable* soft one-hots (same matmul, any
-    sigma), Lines expand via vectorized Bresenham.
-  * Max/Min/MostRecent go through sort + segment-reduce.
-  * Everything is deterministic by construction (the reference's float
-    atomics are run-order dependent).
+Design (the reference's CUDA atomic scatter, expressed in XLA):
+  * points scatter-add into device state (`state.at[cells].add`), which
+    the GPU runs as atomics; Gaussian footprints take either the
+    reference's window loop or a *separable* soft one-hot product, Lines
+    expand via vectorized Bresenham.
+  * Max/Min go through scatter-max/min, MostRecent through a three-scatter
+    lexicographic argmax.
+  * Results match the numpy CPU oracle to float tolerance; device float
+    sums are atomics, so reruns on the GPU can differ in the last bits.
 
 The public API mirrors the reference Python bindings
 (reference: python/bindings.cpp:31-575, python/pcr/__init__.py:17-237)
@@ -112,9 +113,10 @@ def gaussian_splat_spec(
     Instead of landing on a single cell, every point contributes
     ``w = exp(-(dx²/2σx² + dy²/2σy²))`` to all cells within its truncated
     elliptical footprint — useful for turning sparse clouds into smooth
-    continuous surfaces.  On the TPU backend axis-aligned blobs take the
-    separable matmul-splat path (two rank-1 MXU contractions per point
-    block); nonzero rotation routes through the rotated fast path.
+    continuous surfaces.  On the device backend axis-aligned blobs whose
+    window stays inside the weight cutoff take the separable splat (one
+    matrix product per block of points); rotated and small-sigma blobs
+    take the exact window splat.
 
     Arguments mirror the fields they populate on ``spec.glyph``:
 
@@ -167,10 +169,9 @@ def line_splat_spec(
     The segment is centered on the point, runs along ``direction``
     (radians, 0 = +X/East), and spans ``half_length`` world units to
     either side; cells are selected by Bresenham traversal so the stroke
-    stays one cell wide at any angle.  The TPU backend expands segments
-    into closed-form Bresenham runs and commits them via the rectangular
-    matmul-splat, so cost scales with covered cells, not with a per-point
-    loop.
+    stays one cell wide at any angle.  The device backend walks every
+    segment in lockstep and commits all covered cells with one
+    scatter-add.
 
     - ``value_channel``: point channel whose value the stroke deposits.
     - ``direction_channel`` / ``half_length_channel``: per-point

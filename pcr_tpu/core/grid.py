@@ -1,9 +1,9 @@
 """
 Grid — 2-D multi-band raster buffer.
 
-TPU-native rebuild of the reference Grid (include/pcr/core/grid.h:30-96,
+JAX rebuild of the reference Grid (include/pcr/core/grid.h:30-96,
 src/core/grid.cpp). Band-major separate allocations; Host bands are numpy
-arrays, Device bands are jax.Arrays in TPU HBM. The reference's Grid is
+arrays, Device bands are jax.Arrays in device memory. The reference's Grid is
 host-only in practice (grid.cpp:46-49 leaves CUDA alloc TODO); this build
 supports real device residency via `to(MemoryLocation.Device)`.
 """

@@ -7,7 +7,7 @@ world→cell with bbox-inclusive contains, north-up negative cell_size_y,
 edge-clamped tile ranges, GDAL geotransform layout.
 
 Adds vectorized `world_to_cell_array` used by both the numpy oracle and the
-TPU ingest path (coordinates stay float64 on the host; the device only ever
+device ingest path (coordinates stay float64 on the host; the device only ever
 sees integer cells + float32 sub-cell fractions).
 """
 

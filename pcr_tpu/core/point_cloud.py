@@ -1,13 +1,13 @@
 """
 PointCloud — Structure-of-Arrays point cloud with named channels.
 
-TPU-native rebuild of the reference PointCloud
+JAX rebuild of the reference PointCloud
 (include/pcr/core/point_cloud.h:29-103, src/core/point_cloud.cpp).
 Coordinates (x, y) are always Float64 for geo precision; value/metadata
 channels are registered by name with any DataType. Host storage is numpy;
 Device storage is jax.Arrays (coordinates are pre-split into int32 cell +
-float32 fraction on the host before they ever reach the TPU — see
-engine/tpu/assign.py — so f64 never needs to run on device).
+float32 fraction on the host before they ever reach the device — see
+engine/routing.py — so f64 never needs to run on device).
 """
 
 from __future__ import annotations
@@ -188,9 +188,9 @@ class PointCloud:
 
     # -- Transfer ---------------------------------------------------------------------
     # Host↔Device transfer of the raw f64 cloud is intentionally a logical tag
-    # flip: the TPU path never wants raw f64 coordinates on device (f64 is
-    # emulated and slow on TPU). The ingest pipeline moves the *routed* int32
-    # cells + f32 payloads instead (engine/tpu/assign.py).
+    # flip: the device path never wants raw f64 coordinates on device (f64
+    # is slow there). The ingest pipeline moves the *routed* int32 cells +
+    # f32 payloads instead (engine/routing.py).
 
     def to(self, dst: MemoryLocation) -> "PointCloud":
         pc = PointCloud()

@@ -1,7 +1,7 @@
 """
 CPU backend — the vectorized numpy reference path (ExecutionMode.CPU).
 
-This is the parity oracle for the TPU path and a faithful re-implementation
+This is the parity oracle for the device path and a faithful re-implementation
 of the reference's CPU semantics:
 
   * Point glyph accumulate: registry unpack-combine-pack loop
@@ -19,7 +19,7 @@ of the reference's CPU semantics:
     routing. With the default 4096x4096 tiles, grids up to 4096 cells per
     side are a single tile and no clipping occurs.
 
-Per-point preparation (assign / glyph params) is shared with the TPU engine
+Per-point preparation (assign / glyph params) is shared with the device engine
 via engine/routing.py so both paths agree bit-for-bit on cell selection.
 All accumulation happens into full-grid (H, W) float32 state fields; the
 tiling/out-of-core layer above decides which region of state is resident.

@@ -1,10 +1,10 @@
 """
 Filter — predicate-based point filtering before reduction.
 
-TPU-native rebuild of the reference filter (include/pcr/engine/filter.h:20-74,
+JAX rebuild of the reference filter (include/pcr/engine/filter.h:20-74,
 src/engine/filter.cpp, filter_kernels.cu). Predicates are AND-combined over
 Float32 channels. The reference compacts surviving indices (CUB
-DeviceSelect::Flagged); on TPU compaction forces dynamic shapes, so this
+DeviceSelect::Flagged); under jit compaction forces dynamic shapes, so this
 build evaluates predicates to a boolean *mask* and folds it into the ingest
 valid-mask (masked points simply contribute nothing) — semantically
 identical, and cheaper than compaction.

@@ -1,11 +1,11 @@
 """
-Out-of-core TPU engine — grids whose accumulation state exceeds the
+Out-of-core device engine — grids whose accumulation state exceeds the
 device-memory budget.
 
 Reference semantics: the TileManager serves *device* state with H2D/D2H on
 acquire/release so GPU mode handles grids bigger than VRAM
-(src/engine/tile_manager.cpp:183-414). The TPU-native redesign works in
-row *bands* instead of tiles:
+(src/engine/tile_manager.cpp:183-414). This redesign works in row *bands*
+instead of tiles:
 
   * the full per-reduction state lives in host RAM (float32 (H, W) arrays);
   * ONE band-shaped ``TpuEngine`` executor owns device state for the band
@@ -46,11 +46,9 @@ def pick_band_rows(cfg: GridConfig, plans, budget: int) -> int:
     home tile, so tile-aligned bands need no halo). Untiled grids band on
     raw GAUSS_ROW_BLOCK-aligned rows — there is no tile clip to respect,
     and the engine duplicates each glyph entry into every band its
-    footprint touches (closes the round-2 single-tile hole where an
-    over-budget untiled grid silently ran fully resident)."""
-    from .pallas_kernels import padded_width
+    footprint touches."""
     nf = sum(info.state_floats for _, info in plans)
-    bytes_per_row = padded_width(cfg.width) * 4 * nf
+    bytes_per_row = cfg.width * 4 * nf
     # staging buffers + donated double-buffering: keep the state itself
     # within ~1/4 of the budget
     rows = int(budget // (4 * bytes_per_row))
@@ -166,7 +164,9 @@ class OutOfCoreTpuEngine:
     # -- staging: group by band, localize rows, delegate to the band engine ------
 
     def prepare_point(self, spec_idx: int, cells, valid, values,
-                      weights=None, timestamps=None, wire_cheap=False):
+                      weights=None, timestamps=None, col=None, row=None):
+        if cells is None:
+            cells = np.asarray(row, np.int64) * self.W + col
         cells = np.asarray(cells)
         valid = np.asarray(valid, bool)
         row = cells // self.W
@@ -179,18 +179,12 @@ class OutOfCoreTpuEngine:
                 continue
             lcells = ((row[sel] - b * self.band_rows).astype(np.int32)
                       * np.int32(self.W) + col[sel].astype(np.int32))
-            try:
-                chunks = self._exec.prepare_point(
-                    spec_idx, lcells, np.ones(len(lcells), bool),
-                    np.asarray(values)[sel],
-                    None if weights is None else np.asarray(weights)[sel],
-                    None if timestamps is None
-                    else np.asarray(timestamps)[sel],
-                    wire_cheap=wire_cheap)
-            except TypeError:
-                chunks = self._exec.prepare_point(
-                    spec_idx, lcells, np.ones(len(lcells), bool),
-                    np.asarray(values)[sel])
+            chunks = self._exec.prepare_point(
+                spec_idx, lcells, np.ones(len(lcells), bool),
+                np.asarray(values)[sel],
+                None if weights is None else np.asarray(weights)[sel],
+                None if timestamps is None
+                else np.asarray(timestamps)[sel])
             staged.append((int(b), chunks))
         return staged
 

@@ -1,11 +1,11 @@
 """
 Routing — host-side per-point preparation shared by the CPU oracle and the
-TPU engine.
+device engine.
 
 The reference's TileRouter (tile_router.cpp:89-122 assign, :138-240 sort,
 :253-366 extract_batches) routes points to tiles and sorts them so atomics
-contend less. On TPU, scatter is contention-free, so routing reduces to the
-light per-point math — done here on the host in float64 (geo precision) with
+contend less. Here the device scatter takes points in any order, so routing
+reduces to the light per-point math — done here on the host in float64 (geo precision) with
 float32 derived quantities exactly where the reference uses float:
 
   * assign: world→cell floor+clamp+valid (grid_config.cpp:24-43)
@@ -16,7 +16,7 @@ float32 derived quantities exactly where the reference uses float:
   * home-tile clip ranges (the reference clips glyph footprints to the
     point's home tile via per-tile batches)
 
-The TPU device then only ever sees int32 cells and float32 payloads.
+The device then only ever sees int32 cells and float32 payloads.
 """
 
 from __future__ import annotations

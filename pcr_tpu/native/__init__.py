@@ -2,9 +2,10 @@
 Native host kernels — ctypes loader with on-demand compilation.
 
 The shared library is built from router.cpp with g++ -O3 -fopenmp on first
-use (cached under ~/.cache/pcr_tpu_native or $PCR_NATIVE_CACHE); if no
-compiler is available, callers fall back to the vectorized numpy paths
-(routing.py checks `available()`). Set PCR_NATIVE=0 to force the fallback.
+use (cached in `.native_cache/` at the root of the checkout, or in
+$PCR_NATIVE_CACHE); if no compiler is available, callers fall back to the
+vectorized numpy paths (routing.py checks `available()`). Set PCR_NATIVE=0
+to force the fallback.
 """
 
 from __future__ import annotations
@@ -17,9 +18,7 @@ import subprocess
 import numpy as np
 
 __all__ = ["available", "lib", "assign", "assign_cells", "fractional_cells",
-           "gauss_wire_pack", "line_endpoints",
-           "lzw_encode", "lzw_decode", "rotp_counts", "rotp_place",
-           "set_num_threads"]
+           "lzw_encode", "lzw_decode", "set_num_threads"]
 
 _LIB = None
 _TRIED = False
@@ -53,16 +52,21 @@ def _load():
         return None
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    cache = os.environ.get(
-        "PCR_NATIVE_CACHE", os.path.expanduser("~/.cache/pcr_tpu_native"))
+    cache = os.environ.get("PCR_NATIVE_CACHE") or os.path.join(
+        os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))), ".native_cache")
     try:
         os.makedirs(cache, exist_ok=True)
     except OSError:
         return None
     out = os.path.join(cache, f"pcr_router_{digest}.so")
     if not os.path.exists(out):
-        if not _build(src, out):
+        # build under a private name, then rename: concurrent processes
+        # never load a half-written library
+        tmp = f"{out}.{os.getpid()}.tmp"
+        if not _build(src, tmp):
             return None
+        os.replace(tmp, out)
     try:
         lib = ctypes.CDLL(out)
     except OSError:
@@ -92,11 +96,6 @@ def _load():
     lib.pcr_bucket_layout.argtypes = [i, ctypes.c_int64, ctypes.c_int32,
                                       ctypes.c_int32, ctypes.c_int32,
                                       ctypes.c_int64, i64, i]
-    lib.pcr_pack_sub_major.argtypes = [
-        i64, i64, ctypes.c_int32, ctypes.POINTER(ctypes.POINTER(
-            ctypes.c_int32)), i, ctypes.c_int32, ctypes.c_int64,
-        ctypes.c_int32, i]
-    lib.pcr_pack_quad_major.argtypes = lib.pcr_pack_sub_major.argtypes
     lib.pcr_pack_point_wire.argtypes = [
         i, i, u8, f, f, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, i]
@@ -105,23 +104,6 @@ def _load():
     lib.pcr_line_runs_emit.argtypes = [i, i, i, i, u8] + [i] * 4 + \
         [ctypes.c_int64] + [i] * 5
     lib.pcr_line_runs_emit.restype = ctypes.c_int64
-    lib.pcr_gauss_wire_pack.argtypes = [
-        d, d, u8, f, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,
-        i]
-    lib.pcr_line_endpoints.argtypes = [
-        d, d, ctypes.c_int64, u8,
-        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,
-        i, i, i, i64]
-    lib.pcr_rotp_counts.argtypes = [f, f, f, f, ctypes.c_int64,
-                                    ctypes.c_int32, ctypes.c_int32,
-                                    ctypes.c_int32, i]
-    lib.pcr_rotp_place.argtypes = [f, f, f, f, ctypes.c_int64,
-                                   ctypes.c_int32, ctypes.c_int32,
-                                   ctypes.c_int32, i64, i,
-                                   ctypes.c_int32, ctypes.c_int32,
-                                   i64, ctypes.c_int64]
     lib.pcr_fin_avg.argtypes = [f, f, f, ctypes.c_int64]
     lib.pcr_fin_sentinel.argtypes = [f, f, ctypes.c_int64, ctypes.c_float]
     lib.pcr_fin_count.argtypes = [f, f, ctypes.c_int64]
@@ -205,7 +187,7 @@ def fractional_cells(cfg, x: np.ndarray, y: np.ndarray):
 def pack_point_wire(col, row, valid, values, weights, start: int, end: int,
                     bucket: int, width: int, sentinel: int,
                     mode: int) -> np.ndarray:
-    """One-pass staging pack for the wire-minimal Point layout.
+    """One-pass staging pack for the grid-state Point layout.
 
     Returns the padded int32 device buffer [cells | f0 (| f1)] for the
     [start, end) slice; mode 0 = Sum/Average (f0=value), 1 = Count (f0=1),
@@ -231,59 +213,6 @@ def pack_point_wire(col, row, valid, values, weights, start: int, end: int,
                           start, end, bucket, width, sentinel, mode,
                           _ptr(out, ctypes.c_int32))
     return out
-
-
-def gauss_wire_pack(cfg, x, y, valid, values, start: int, end: int,
-                    bucket: int) -> np.ndarray:
-    """One-pass staging pack for the minimal-wire hybrid Gaussian layout
-    (uniform-shape case): raw f64 world coords -> padded
-    [icxy | subq | value] i32 device buffer for the [start, end) slice.
-    Byte-identical to tpu_backend._prepare_gaussian_wire's numpy chain."""
-    L = _load()
-    out = np.empty(3 * bucket, np.int32)
-    x = np.ascontiguousarray(x, np.float64)
-    y = np.ascontiguousarray(y, np.float64)
-    if valid.dtype == np.bool_:
-        valid = valid.view(np.uint8)
-    valid = np.ascontiguousarray(valid, np.uint8)
-    values = np.ascontiguousarray(values, np.float32)
-    L.pcr_gauss_wire_pack(_ptr(x, ctypes.c_double), _ptr(y, ctypes.c_double),
-                          _ptr(valid, ctypes.c_uint8),
-                          _ptr(values, ctypes.c_float),
-                          start, end, bucket,
-                          cfg.origin_x, cfg.origin_y,
-                          1.0 / cfg.cell_size_x, 1.0 / cfg.cell_size_y,
-                          _ptr(out, ctypes.c_int32))
-    return out
-
-
-def line_endpoints(cfg, x, y, valid, hx: float, hy: float,
-                   cos_d: float, sin_d: float):
-    """One-pass line endpoint math for the minimal-wire hybrid Line layout
-    (uniform-shape case). Returns (e0, e1, nruns, max_abs_coord,
-    max_dmaj) where e0/e1 are the packed u16-pair endpoint arrays of
-    routing.line_params + pack_u16_pair, nruns the per-point run counts,
-    and the scalars feed the 32000 wire guard / jmax chunking."""
-    L = _load()
-    n = len(x)
-    x = np.ascontiguousarray(x, np.float64)
-    y = np.ascontiguousarray(y, np.float64)
-    if valid.dtype == np.bool_:
-        valid = valid.view(np.uint8)
-    valid = np.ascontiguousarray(valid, np.uint8)
-    e0 = np.empty(n, np.int32)
-    e1 = np.empty(n, np.int32)
-    nruns = np.empty(n, np.int32)
-    stats = np.zeros(2, np.int64)
-    L.pcr_line_endpoints(_ptr(x, ctypes.c_double), _ptr(y, ctypes.c_double),
-                         n, _ptr(valid, ctypes.c_uint8),
-                         hx, hy, cos_d, sin_d,
-                         cfg.origin_x, cfg.origin_y,
-                         1.0 / cfg.cell_size_x, 1.0 / cfg.cell_size_y,
-                         _ptr(e0, ctypes.c_int32), _ptr(e1, ctypes.c_int32),
-                         _ptr(nruns, ctypes.c_int32),
-                         _ptr(stats, ctypes.c_int64))
-    return e0, e1, nruns, int(stats[0]), int(stats[1])
 
 
 def set_num_threads(n: int) -> None:
@@ -324,7 +253,7 @@ def lzw_decode(data: bytes, max_out: int) -> bytes:
 
 def bucket_layout(eb: np.ndarray, nblocks: int, block: int,
                   visit_all: bool, nsub_bucket_fn):
-    """Native counting-sort layout for the sorted splat.
+    """Native counting-sort layout for the separable Gaussian splat.
 
     Returns (slots int64 (E,), bids int32 (nsub,), nsub) with -1 slots as
     padding; trailing pads carry the last real block id."""
@@ -342,86 +271,6 @@ def bucket_layout(eb: np.ndarray, nblocks: int, block: int,
                         _ptr(slots, ctypes.c_int64),
                         _ptr(bids, ctypes.c_int32))
     return slots, bids, nsub
-
-
-def pack_sub_major(slots: np.ndarray, idx, seg_arrays, nsub: int,
-                   block: int, out: np.ndarray | None = None,
-                   quad: bool = False) -> np.ndarray:
-    """Fused gather+fill+sub_major pack (see router.cpp pcr_pack_sub_major).
-
-    slots: int64 (nsub*block,) slot→entry map (-1 = padding); idx: int64
-    entry→source map or None (identity); seg_arrays: list of (array, fill)
-    where float arrays are bit-viewed into the int32 buffer. Returns the
-    packed int32 buffer of nseg*E ints (bids are appended by the caller).
-    quad=True emits the quad-major layout [sub][slot(4)][seg][block/4]
-    consumed by the packed rot splat (pcr_pack_quad_major)."""
-    L = _load()
-    nseg = len(seg_arrays)
-    E = nsub * block
-    if out is None:
-        out = np.empty(nseg * E, np.int32)
-    assert out.flags.c_contiguous and len(out) >= nseg * E
-    holders = []
-    ptrs = (ctypes.POINTER(ctypes.c_int32) * nseg)()
-    fills = np.empty(nseg, np.int32)
-    for g, (arr, fill) in enumerate(seg_arrays):
-        orig = np.asarray(arr)
-        if orig.dtype.kind == "f":
-            a = np.ascontiguousarray(orig, np.float32).view(np.int32)
-            fv = np.float32(fill).view(np.int32)
-        else:
-            a = np.ascontiguousarray(orig, np.int32)
-            fv = np.int32(fill)
-        holders.append(a)
-        ptrs[g] = _ptr(a, ctypes.c_int32)
-        fills[g] = fv
-    slots = np.ascontiguousarray(slots, np.int64)
-    if idx is None:
-        idxp = slots.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
-        has_idx = 0
-    else:
-        idx = np.ascontiguousarray(idx, np.int64)
-        idxp = idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
-        has_idx = 1
-    fn = L.pcr_pack_quad_major if quad else L.pcr_pack_sub_major
-    fn(slots.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), idxp,
-       has_idx, ptrs, _ptr(fills, ctypes.c_int32), nseg, nsub, block,
-       _ptr(out, ctypes.c_int32))
-    return out
-
-
-def rotp_counts(rlo, rhi, wlo, whi, th: int, ncb: int,
-                nbc: int) -> np.ndarray:
-    """Fused (row-block, quarter) histogram for the packed rot layout.
-    Inputs are the integral f32 window bounds; returns cf (nbc, 4) int32."""
-    L = _load()
-    n = len(rlo)
-    rlo, rhi, wlo, whi = (np.ascontiguousarray(a, np.float32)
-                          for a in (rlo, rhi, wlo, whi))
-    cf = np.empty(nbc * 4, np.int32)
-    L.pcr_rotp_counts(_ptr(rlo, ctypes.c_float), _ptr(rhi, ctypes.c_float),
-                      _ptr(wlo, ctypes.c_float), _ptr(whi, ctypes.c_float),
-                      n, th, ncb, nbc, _ptr(cf, ctypes.c_int32))
-    return cf.reshape(nbc, 4)
-
-
-def rotp_place(rlo, rhi, wlo, whi, th: int, ncb: int, nbc: int,
-               base_b: np.ndarray, G: int, block: int,
-               slots: np.ndarray) -> None:
-    """Fill `slots` (int64, prefilled to -1 inside) with the packed rot
-    layout: point-order iteration reproduces the numpy stable argsort's
-    slot assignment bit-for-bit (see router.cpp pcr_rotp_place)."""
-    L = _load()
-    n = len(rlo)
-    rlo, rhi, wlo, whi = (np.ascontiguousarray(a, np.float32)
-                          for a in (rlo, rhi, wlo, whi))
-    base_b = np.ascontiguousarray(base_b, np.int64)
-    counters = np.empty(nbc * 4, np.int32)
-    L.pcr_rotp_place(_ptr(rlo, ctypes.c_float), _ptr(rhi, ctypes.c_float),
-                     _ptr(wlo, ctypes.c_float), _ptr(whi, ctypes.c_float),
-                     n, th, ncb, nbc, _ptr(base_b, ctypes.c_int64),
-                     _ptr(counters, ctypes.c_int32), G, block,
-                     _ptr(slots, ctypes.c_int64), len(slots))
 
 
 def line_runs(ix0, iy0, ix1, iy1, valid, clip_cs, clip_rs, clip_ce,

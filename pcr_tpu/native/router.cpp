@@ -116,12 +116,11 @@ void pcr_fractional_cells(const double* x, const double* y, int64_t n,
     }
 }
 
-// Fused staging pack for the wire-minimal Point layout: one pass turns
+// Fused staging pack for the grid-state Point layout: one pass turns
 // (col,row,valid,values[,weights]) into the padded device buffer
 // [cells | f0 (| f1)], each segment `bucket` entries, f32 bit-viewed into
 // the i32 buffer. Replaces a 5-pass numpy chain (flatten, where, astype,
-// field math, pad-copy) that cost seconds per 5M-point chunk on a 1-core
-// host. mode: 0 f0=value (Sum/Average); 1 f0=1 (Count);
+// field math, pad-copy). mode: 0 f0=value (Sum/Average); 1 f0=1 (Count);
 // 2 f0=value*w, f1=w (WeightedAverage).
 void pcr_pack_point_wire(const int32_t* col, const int32_t* row,
                          const uint8_t* valid, const float* values,
@@ -158,124 +157,6 @@ void pcr_pack_point_wire(const int32_t* col, const int32_t* row,
         out_f0[j] = 0;
         if (out_f1) out_f1[j] = 0;
     }
-}
-
-// Fused staging pack for the minimal-wire hybrid Gaussian layout
-// (tpu_backend._prepare_gaussian_wire semantics, uniform-shape case): one
-// pass turns raw f64 world coords into the padded [icxy | subq | value]
-// device buffer — fractional cell, floor, u16 sub-cell quantization
-// (round-half-even, matching np.round), u16 pair packing, invalid
-// sentinel, pad fill. Replaces routing.gaussian_params (~20 numpy
-// passes, and the dominant hybrid-glyph cost on a 1-core steal-jittery
-// host) for clouds without per-point sigma/rotation channels. Byte-
-// identical to the numpy wire path for in-bounds points.
-void pcr_gauss_wire_pack(const double* x, const double* y,
-                         const uint8_t* valid, const float* values,
-                         int64_t start, int64_t end, int64_t bucket,
-                         double origin_x, double origin_y,
-                         double inv_csx, double inv_csy,
-                         int32_t* out)
-{
-    const int64_t m = end - start;
-    int32_t* out_icxy = out;
-    int32_t* out_subq = out + bucket;
-    int32_t* out_val = out + 2 * bucket;
-    const double lim = 1073741824.0;   // int64-safe clamp for wild coords
-#pragma omp parallel for schedule(static)
-    for (int64_t j = 0; j < m; ++j) {
-        const int64_t i = start + j;
-        const double fcx = (x[i] - origin_x) * inv_csx;
-        const double fcy = (y[i] - origin_y) * inv_csy;
-        double fx = std::floor(fcx);
-        double fy = std::floor(fcy);
-        if (!(fx > -lim)) fx = -lim;       // also catches NaN
-        if (fx > lim) fx = lim;
-        if (!(fy > -lim)) fy = -lim;
-        if (fy > lim) fy = lim;
-        const int64_t icx = valid[i] ? (int64_t)fx : -32768;
-        const int64_t icy = valid[i] ? (int64_t)fy : 0;
-        out_icxy[j] = (int32_t)(uint32_t)(((uint64_t)(icx & 0xFFFF) << 16)
-                                          | (uint64_t)(icy & 0xFFFF));
-        float sub_cx = (float)(fcx - fx);
-        float sub_cy = (float)(fcy - fy);
-        if (!(sub_cx == sub_cx)) sub_cx = 0.0f;   // NaN-safe (dead points)
-        if (!(sub_cy == sub_cy)) sub_cy = 0.0f;
-        const int64_t qx = (int64_t)std::nearbyintf(sub_cx * 65535.0f);
-        const int64_t qy = (int64_t)std::nearbyintf(sub_cy * 65535.0f);
-        out_subq[j] = (int32_t)(uint32_t)(((uint64_t)(qx & 0xFFFF) << 16)
-                                          | (uint64_t)(qy & 0xFFFF));
-        __builtin_memcpy(&out_val[j], &values[i], 4);
-    }
-    for (int64_t j = m; j < bucket; ++j) {
-        out_icxy[j] = (int32_t)0x80000000;   // -32768 << 16: dead sentinel
-        out_subq[j] = 0;
-        out_val[j] = 0;
-    }
-}
-
-// Fused line endpoint math for the minimal-wire hybrid Line layout
-// (routing.line_params + tpu_backend._prepare_line_wire, uniform-shape
-// case): one pass from raw f64 world coords to packed u16-pair endpoint
-// arrays e0/e1, per-point run counts, and the chunking stats. cos/sin of
-// the (single) direction are computed by the caller with numpy so the
-// endpoint bits match the numpy/staged path exactly. stats[0] =
-// max |endpoint coord| (the 32000 wire guard), stats[1] = max(ddx, ddy)
-// (runlen_max - 1). Wild out-of-bounds coords are clamped int64-safe
-// instead of int32-wrapped; the 32000 guard rejects them either way.
-void pcr_line_endpoints(const double* x, const double* y, int64_t n,
-                        const uint8_t* valid,
-                        float hx, float hy, float cos_d, float sin_d,
-                        double origin_x, double origin_y,
-                        double inv_csx, double inv_csy,
-                        int32_t* e0, int32_t* e1, int32_t* nruns,
-                        int64_t* stats)
-{
-    const double dxh = (double)hx * (double)cos_d;
-    const double dyh = (double)hy * (double)sin_d;
-    const double lim = 1073741824.0;
-    int64_t max_abs = 0;
-    int64_t max_dmaj = 0;
-#pragma omp parallel for schedule(static) \
-    reduction(max:max_abs) reduction(max:max_dmaj)
-    for (int64_t i = 0; i < n; ++i) {
-        const double fcx = (x[i] - origin_x) * inv_csx;
-        const double fcy = (y[i] - origin_y) * inv_csy;
-        double x0 = fcx - dxh, y0 = fcy - dyh;
-        double x1 = fcx + dxh, y1 = fcy + dyh;
-        // literal routing._round_half_away formula (bit-parity with numpy)
-        x0 = x0 >= 0.0 ? std::floor(x0 + 0.5) : std::ceil(x0 - 0.5);
-        y0 = y0 >= 0.0 ? std::floor(y0 + 0.5) : std::ceil(y0 - 0.5);
-        x1 = x1 >= 0.0 ? std::floor(x1 + 0.5) : std::ceil(x1 - 0.5);
-        y1 = y1 >= 0.0 ? std::floor(y1 + 0.5) : std::ceil(y1 - 0.5);
-        if (!(x0 > -lim)) x0 = -lim;
-        if (x0 > lim) x0 = lim;
-        if (!(y0 > -lim)) y0 = -lim;
-        if (y0 > lim) y0 = lim;
-        if (!(x1 > -lim)) x1 = -lim;
-        if (x1 > lim) x1 = lim;
-        if (!(y1 > -lim)) y1 = -lim;
-        if (y1 > lim) y1 = lim;
-        const int64_t ix0 = (int64_t)x0, iy0 = (int64_t)y0;
-        const int64_t ix1 = (int64_t)x1, iy1 = (int64_t)y1;
-        const int64_t ddx = ix1 >= ix0 ? ix1 - ix0 : ix0 - ix1;
-        const int64_t ddy = iy1 >= iy0 ? iy1 - iy0 : iy0 - iy1;
-        const int64_t dmaj = ddx > ddy ? ddx : ddy;
-        const int64_t dmin = ddx > ddy ? ddy : ddx;
-        int64_t a;
-        a = ix0 < 0 ? -ix0 : ix0; if (a > max_abs) max_abs = a;
-        a = iy0 < 0 ? -iy0 : iy0; if (a > max_abs) max_abs = a;
-        a = ix1 < 0 ? -ix1 : ix1; if (a > max_abs) max_abs = a;
-        a = iy1 < 0 ? -iy1 : iy1; if (a > max_abs) max_abs = a;
-        if (dmaj > max_dmaj) max_dmaj = dmaj;
-        const int64_t ey0 = valid[i] ? iy0 : -32768;
-        e0[i] = (int32_t)(uint32_t)(((uint64_t)(ix0 & 0xFFFF) << 16)
-                                    | (uint64_t)(ey0 & 0xFFFF));
-        e1[i] = (int32_t)(uint32_t)(((uint64_t)(ix1 & 0xFFFF) << 16)
-                                    | (uint64_t)(iy1 & 0xFFFF));
-        nruns[i] = valid[i] ? (int32_t)(dmin + 1) : 0;
-    }
-    stats[0] = max_abs;
-    stats[1] = max_dmaj;
 }
 
 int pcr_native_version() { return 1; }
@@ -498,7 +379,7 @@ int64_t pcr_lzw_decode(const uint8_t* in, int64_t n,
 } // extern "C"
 
 // ---------------------------------------------------------------------------
-// Block bucket layout — the sorted-splat's counting sort (the analogue of
+// Block bucket layout — the separable splat's counting sort (the analogue of
 // the reference TileRouter's CUB radix sort, tile_router_kernels.cu:169-293).
 // Entries carry a block id eb[i] in [0, nblocks); the layout places them
 // block-contiguously with each block's run padded to a multiple of `block`
@@ -528,7 +409,7 @@ int64_t pcr_bucket_nsub(const int32_t* eb, int64_t n, int32_t nblocks,
 // Pass 2: fill slot->entry indices (-1 = padding) and per-sub-chunk block
 // ids. out_slots has capacity nsub_total*block (nsub_total >= pass-1 nsub,
 // ladder-padded by the caller); trailing pad sub-chunks get the last block
-// id (the Pallas ascending-bids contract).
+// id, so block ids stay ascending.
 void pcr_bucket_layout(const int32_t* eb, int64_t n, int32_t nblocks,
                        int32_t block, int32_t visit_all,
                        int64_t nsub_total,
@@ -578,71 +459,6 @@ void pcr_bucket_layout(const int32_t* eb, int64_t n, int32_t nblocks,
         const int32_t b = eb[i];
         if (b < 0 || b >= nblocks) continue;
         out_slots[offs[b] + cursor[b]++] = i;
-    }
-}
-
-// Fused gather + fill + sub_major layout for the packed splat buffer:
-// out[s*(nseg*block) + g*block + j] = slot<0 ? fill[g] : seg[g][idx?idx[p]:p]
-// Replaces a numpy fancy-index + where + stack + transpose chain that costs
-// seconds per 5M-point chunk on a single-core host.
-void pcr_pack_sub_major(const int64_t* slots, const int64_t* idx,
-                        int32_t has_idx,
-                        const int32_t* const* segs, const int32_t* fills,
-                        int32_t nseg, int64_t nsub, int32_t block,
-                        int32_t* out)
-{
-#ifdef _OPENMP
-#pragma omp parallel for schedule(static)
-#endif
-    for (int64_t s = 0; s < nsub; ++s) {
-        const int64_t* sl = slots + s * (int64_t)block;
-        int32_t* base = out + s * (int64_t)nseg * block;
-        for (int32_t g = 0; g < nseg; ++g) {
-            const int32_t* src = segs[g];
-            const int32_t fill = fills[g];
-            int32_t* dst = base + (int64_t)g * block;
-            for (int32_t j = 0; j < block; ++j) {
-                const int64_t p = sl[j];
-                dst[j] = (p < 0) ? fill
-                                 : src[has_idx ? idx[p] : p];
-            }
-        }
-    }
-}
-
-// Quad-major variant for the packed rotated-Gaussian splat: the block's
-// four 32-lane slots become the OUTER dim so the device kernel can flatten
-// (4, nseg, G) -> (4, nseg*G) for one whole-block selection matmul:
-// out[s*(nseg*block) + q*(nseg*G) + g*G + j] with G = block/4, q = slot,
-// j = rank within the slot (slots[] is slot-major within each sub-chunk:
-// position q*G + j).
-void pcr_pack_quad_major(const int64_t* slots, const int64_t* idx,
-                         int32_t has_idx,
-                         const int32_t* const* segs, const int32_t* fills,
-                         int32_t nseg, int64_t nsub, int32_t block,
-                         int32_t* out)
-{
-    const int32_t G = block / 4;
-#ifdef _OPENMP
-#pragma omp parallel for schedule(static)
-#endif
-    for (int64_t s = 0; s < nsub; ++s) {
-        const int64_t* sl = slots + s * (int64_t)block;
-        int32_t* base = out + s * (int64_t)nseg * block;
-        for (int32_t q = 0; q < 4; ++q) {
-            const int64_t* slq = sl + (int64_t)q * G;
-            int32_t* dstq = base + (int64_t)q * nseg * G;
-            for (int32_t g = 0; g < nseg; ++g) {
-                const int32_t* src = segs[g];
-                const int32_t fill = fills[g];
-                int32_t* dst = dstq + (int64_t)g * G;
-                for (int32_t j = 0; j < G; ++j) {
-                    const int64_t p = slq[j];
-                    dst[j] = (p < 0) ? fill
-                                     : src[has_idx ? idx[p] : p];
-                }
-            }
-        }
     }
 }
 
@@ -789,72 +605,5 @@ void pcr_fin_count(const float* s, float* out, int64_t n)
         out[i] = s[i] > 0.0f ? s[i] : nan;
 }
 
-// ---------------------------------------------------------------------------
-// Packed rotated-splat layout (tpu_backend._bucket_blocks_2d_packed): the
-// numpy formulation materializes ~10 E-length int64 arrays plus a stable
-// argsort — on this class of 1-core host that costs minutes at 5M points,
-// nearly all of it first-touch page faults and radix passes. These two
-// fused passes never materialize the expansion: counts go straight into
-// the (nbc, 4) histogram, and placement iterates points in order (which IS
-// the stable sort order: copies ascend by point index within every fine
-// bucket, and each copy's (row-block, quarter) pairs are emitted row-major
-// exactly like the numpy o // kq / o % kq decomposition).
-// ---------------------------------------------------------------------------
-
-static inline void rotp_ranges(float rlo, float rhi, float wlo, float whi,
-                               int32_t th, int64_t* r0, int64_t* r1,
-                               int64_t* q0, int64_t* q1)
-{
-    // inputs are integral, >= 0 floats (host-clipped windows; dead points
-    // carry wlo=1 > whi=0), so (int64) truncation matches numpy's floor
-    *r0 = (int64_t)rlo / th;
-    *r1 = (int64_t)rhi / th;
-    if (*r1 < *r0) *r1 = *r0;
-    *q0 = (int64_t)wlo / 32;
-    *q1 = (int64_t)whi / 32;
-    if (*q1 < *q0) *q1 = *q0;
-}
-
-void pcr_rotp_counts(const float* rlo, const float* rhi,
-                     const float* wlo, const float* whi,
-                     int64_t n, int32_t th, int32_t ncb, int32_t nbc,
-                     int32_t* cf /* nbc*4, zeroed here */)
-{
-    std::memset(cf, 0, (size_t)nbc * 4 * sizeof(int32_t));
-    for (int64_t i = 0; i < n; ++i) {
-        int64_t r0, r1, q0, q1;
-        rotp_ranges(rlo[i], rhi[i], wlo[i], whi[i], th, &r0, &r1, &q0, &q1);
-        for (int64_t rb = r0; rb <= r1; ++rb) {
-            int32_t* row = cf + (rb * ncb) * 4;
-            for (int64_t q = q0; q <= q1; ++q)
-                row[(q >> 2) * 4 + (q & 3)]++;
-        }
-    }
-}
-
-void pcr_rotp_place(const float* rlo, const float* rhi,
-                    const float* wlo, const float* whi,
-                    int64_t n, int32_t th, int32_t ncb, int32_t nbc,
-                    const int64_t* base_b /* nbc entry offsets */,
-                    int32_t* counters /* nbc*4 scratch, zeroed here */,
-                    int32_t G, int32_t block,
-                    int64_t* slots, int64_t E /* prefilled here to -1 */)
-{
-    std::memset(counters, 0, (size_t)nbc * 4 * sizeof(int32_t));
-    std::memset(slots, 0xFF, (size_t)E * sizeof(int64_t));   // -1
-    for (int64_t i = 0; i < n; ++i) {
-        int64_t r0, r1, q0, q1;
-        rotp_ranges(rlo[i], rhi[i], wlo[i], whi[i], th, &r0, &r1, &q0, &q1);
-        for (int64_t rb = r0; rb <= r1; ++rb) {
-            for (int64_t q = q0; q <= q1; ++q) {
-                const int64_t b = rb * ncb + (q >> 2);
-                const int32_t slot = (int32_t)(q & 3);
-                const int32_t rank = counters[b * 4 + slot]++;
-                slots[base_b[b] + (int64_t)(rank / G) * block
-                      + (int64_t)slot * G + rank % G] = i;
-            }
-        }
-    }
-}
 
 } // extern "C"

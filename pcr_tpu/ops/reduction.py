@@ -1,7 +1,7 @@
 """
 Reduction ops — the op algebra and type-erased registry.
 
-TPU-native rebuild of the reference ops layer
+JAX rebuild of the reference ops layer
 (include/pcr/ops/reduction_op.h:17-51, include/pcr/ops/builtin_ops.h:10-183,
 include/pcr/ops/reduction_registry.h:31-80).
 
@@ -17,8 +17,8 @@ additionally carries a *vectorized plan*:
   * ``fields(values, weights, timestamps)`` maps N points to an (K, N) field
     matrix of per-point state contributions,
   * ``scatter_kind`` says how fields fold per cell: 'sum' (Sum/Count/Average/
-    WeightedAverage — matmul-scatter on the MXU), 'max'/'min' (sort +
-    segment-reduce), 'argmax_ts' (MostRecent: lexicographic max on
+    WeightedAverage — scatter-add), 'max'/'min' (scatter-max/min),
+    'argmax_ts' (MostRecent: lexicographic max on
     (timestamp, value)),
   * ``merge_arrays`` / ``finalize_arrays`` are whole-grid vectorized
     equivalents of merge/finalize.
@@ -278,8 +278,8 @@ class ReductionInfo:
     uses_weight: bool = False
     uses_timestamp: bool = False
     # False for user-registered Custom ops: the engines then skip the
-    # builtin-shaped fast paths (wire packs / Pallas one-hot layouts,
-    # whose field layouts are keyed to the builtin types) and run the
+    # builtin-shaped fast paths (the native Point pack, whose field
+    # layout is keyed to the builtin types) and run the
     # generic kind-dispatched scatter, which consumes info.fields as-is
     builtin: bool = True
     # Unique per REGISTRATION for custom ops (0 for builtins): compiled
@@ -401,7 +401,7 @@ def register_custom_reduction(*, state_floats: int, identity,
                               uses_timestamp: bool = False) -> None:
     """Install a user-provided op as ``ReductionType.Custom``.
 
-    The TPU-native analogue of the reference's compile-time template
+    The analogue of the reference's compile-time template
     path (``Accumulator::accumulate<Op>``, accumulator.cpp:61-99; the
     registry returns nullptr for Custom, reduction_registry.h:75): the
     op is defined by its VECTORIZED plan and runs on every engine —

@@ -2,10 +2,11 @@
 Multi-chip ingest — jax.sharding Mesh + shard_map + XLA collectives.
 
 The reference is single-device (SURVEY.md §2.7: no NCCL/MPI anywhere); its
-only cross-unit "communication" is PCIe memcpy. This module is the TPU-native
+only cross-unit "communication" is PCIe memcpy. This module is the
 scale-out the reference never had, built on the fact that every registered
 reduction has an associative, commutative merge (builtin_ops.h merge
-functions), so cross-chip combination is a psum/pmax-style tree over ICI.
+functions), so cross-device combination is a psum/pmax-style collective
+(NCCL over NVLink on GPUs).
 
 Two mesh axes:
 
@@ -47,11 +48,8 @@ def _jax():
 
 def _vary(jax, x, axes):
     """Mark a replicated-constant as varying over mesh axes (needed for
-    shard_map scan carries that later psum). pcast on new jax, pvary on
-    older releases."""
-    if hasattr(jax.lax, "pcast"):
-        return jax.lax.pcast(x, axes, to="varying")
-    return jax.lax.pvary(x, axes)
+    shard_map scan carries that later psum)."""
+    return jax.lax.pcast(x, axes, to="varying")
 
 
 def make_mesh(devices=None, dp: int | None = None, sp: int | None = None):

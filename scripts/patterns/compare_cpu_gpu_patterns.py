@@ -1,14 +1,14 @@
 #!/usr/bin/env python
 """
-CPU ↔ TPU numerical parity comparator — rebuild of
+CPU ↔ GPU numerical parity comparator — rebuild of
 scripts/patterns/compare_cpu_gpu_patterns.py:28-95: compares GeoTIFF outputs
 cell-by-cell with a tolerance, reporting max_diff / num_different and
 PASS/FAIL per pattern.
 
-Run generate_glyph_patterns.py with --mode cpu and --mode tpu into the same
+Run generate_glyph_patterns.py with --mode cpu and --mode gpu into the same
 directory first, then:
 
-    python scripts/patterns/compare_cpu_tpu_patterns.py --dir /tmp/pcr_patterns
+    python scripts/patterns/compare_cpu_gpu_patterns.py --dir /tmp/pcr_patterns
 """
 
 import argparse
@@ -49,9 +49,9 @@ def _nan_fringe(a):
     return fringe
 
 
-def compare(cpu_path, tpu_path):
+def compare(cpu_path, gpu_path):
     a = read_geotiff_band(cpu_path, 0)
-    b = read_geotiff_band(tpu_path, 0)
+    b = read_geotiff_band(gpu_path, 0)
     if a.shape != b.shape:
         return False, f"shape mismatch {a.shape} vs {b.shape}"
     nan_mismatch = int((np.isnan(a) != np.isnan(b)).sum())
@@ -93,12 +93,12 @@ def main():
         sys.exit(2)
     failures = 0
     for cpu_path in cpu_files:
-        tpu_path = cpu_path.replace("_cpu.tif", "_tpu.tif")
+        gpu_path = cpu_path.replace("_cpu.tif", "_gpu.tif")
         name = os.path.basename(cpu_path)[: -len("_cpu.tif")]
-        if not os.path.exists(tpu_path):
-            print(f"{name:24s} SKIP (no tpu output)")
+        if not os.path.exists(gpu_path):
+            print(f"{name:24s} SKIP (no gpu output)")
             continue
-        ok, msg = compare(cpu_path, tpu_path)
+        ok, msg = compare(cpu_path, gpu_path)
         failures += (not ok)
         print(f"{name:24s} {'PASS' if ok else 'FAIL'}  {msg}")
     sys.exit(1 if failures else 0)

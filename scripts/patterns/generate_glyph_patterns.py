@@ -3,7 +3,7 @@
 
 Renders eight known scenes through the full Pipeline (Point / Line /
 Gaussian glyphs) to multi-panel PNG figures, one GeoTIFF per raster
-panel (consumed by compare_cpu_tpu_patterns.py for CPU<->TPU parity),
+panel (consumed by compare_cpu_gpu_patterns.py for CPU<->GPU parity),
 and an HTML index. Scene inventory mirrors the reference's visual
 validation suite (scripts/patterns/generate_glyph_patterns.py:163-708):
 
@@ -20,8 +20,8 @@ Usage:
     python scripts/patterns/generate_glyph_patterns.py \
         --out /tmp/pcr_patterns --mode cpu
     python scripts/patterns/generate_glyph_patterns.py \
-        --out /tmp/pcr_patterns --mode tpu
-    python scripts/patterns/compare_cpu_tpu_patterns.py --dir /tmp/pcr_patterns
+        --out /tmp/pcr_patterns --mode gpu
+    python scripts/patterns/compare_cpu_gpu_patterns.py --dir /tmp/pcr_patterns
 """
 
 import argparse
@@ -86,7 +86,7 @@ class Ctx:
         cfg.grid = gc
         cfg.reductions = [spec]
         cfg.exec_mode = self.exec_mode
-        if self.mode_name == "tpu":
+        if self.mode_name == "gpu":
             # parity evidence must not silently degrade to the CPU
             # oracle (0.0-diff "parity" proves nothing) — fail instead
             cfg.gpu_require_strict = True
@@ -444,7 +444,7 @@ SCENES = [
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="/tmp/pcr_patterns")
-    ap.add_argument("--mode", default="cpu", choices=["cpu", "tpu"])
+    ap.add_argument("--mode", default="cpu", choices=["cpu", "gpu"])
     ap.add_argument("--scenes", type=int, nargs="*", default=None,
                     help="1-based scene numbers to render (default: all)")
     args = ap.parse_args()

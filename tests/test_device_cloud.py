@@ -4,7 +4,7 @@ The reference's GPU-Device harness moves the cloud to the device once and
 ingests it repeatedly (scripts/benchmark_cpu_gpu.py:49-66, PointCloud::to
 in src/core/point_cloud.cpp:216-258); every ingest after the first is pure
 device compute. Mirror: a cloud whose location() is Device is staged once
-per Pipeline and cached by identity, so repeated ingests skip the wire.
+per Pipeline and cached by identity, so repeated ingests skip the transfer.
 """
 
 import numpy as np

@@ -18,42 +18,22 @@ class TestDeviceProbes:
         assert isinstance(pcr.tpu_device_name(), str)
 
 
-class TestWedgedTunnelProbe:
-    def test_hung_probe_times_out_and_falls_back(self, monkeypatch):
-        """A wedged tunnel must not freeze Pipeline.create: the device
-        probe is time-bounded (PCR_TPU_PROBE_TIMEOUT, default 30 s) and
-        a timeout takes the documented CPU fallback ladder (reference
-        ladder: pipeline.cpp:113-214). Simulates the hang via the
-        PCR_TEST_PROBE_HANG hook in the probe thread."""
-        import time
-
-        from pcr_tpu.core import types as core_types
-
-        saved = dict(core_types._TPU_PROBE)
+class TestDeviceCheck:
+    def test_cpu_backend_reports_no_accelerator(self, monkeypatch):
+        """The device check is a plain jax.devices() query: on the CPU
+        backend it reports no accelerator, and GPU mode takes the
+        documented CPU fallback with a GPU-worded warning (reference
+        ladder: pipeline.cpp:113-214)."""
         monkeypatch.delenv("PCR_FORCE_JAX", raising=False)
-        monkeypatch.setenv("PCR_TEST_PROBE_HANG", "1")
-        monkeypatch.setenv("PCR_TPU_PROBE_TIMEOUT", "2")
-        core_types._TPU_PROBE["done"] = False
-        core_types._TPU_PROBE["devices"] = []
-        try:
-            gc = make_grid_config(w=10.0, h=10.0)
-            cfg = pcr.PipelineConfig()
-            cfg.grid = gc
-            cfg.reductions = [
-                pcr.ReductionSpec(value_channel="v", type=RT.Sum)]
-            cfg.exec_mode = pcr.ExecutionMode.GPU
-            cfg.gpu_fallback_to_cpu = True
-            t0 = time.monotonic()
-            with pytest.warns(UserWarning) as rec:
-                p = pcr.Pipeline.create(cfg)
-            elapsed = time.monotonic() - t0
-            assert elapsed < 15.0, f"create took {elapsed:.1f}s"
-            assert p._backend == "cpu"
-            msgs = [str(w.message) for w in rec]
-            assert any("did not answer" in m for m in msgs)
-            assert any("falling back" in m for m in msgs)
-        finally:
-            core_types._TPU_PROBE.update(saved)
+        assert not pcr.tpu_device_available()
+        assert pcr.tpu_device_count() == 0
+        cfg = pcr.PipelineConfig(
+            grid=make_grid_config(w=10.0, h=10.0),
+            reductions=[pcr.ReductionSpec(value_channel="v", type=RT.Sum)],
+            exec_mode=pcr.ExecutionMode.GPU)
+        with pytest.warns(UserWarning, match="no GPU device available"):
+            p = pcr.Pipeline.create(cfg)
+        assert p._backend == "cpu"
 
 
 class TestFallbackLadder:
@@ -88,7 +68,7 @@ class TestFallbackLadder:
         cfg.gpu_require_strict = True
         with pytest.raises(pcr.PcrError) as ei:
             pcr.Pipeline.create(cfg)
-        assert ei.value.status.code == pcr.StatusCode.TpuError
+        assert ei.value.status.code == pcr.StatusCode.CudaError
 
     def test_no_fallback_no_strict_fails(self, monkeypatch):
         monkeypatch.delenv("PCR_FORCE_JAX", raising=False)

@@ -5,7 +5,8 @@ Contract: regardless of which transfer strategy finalize picks (one
 packed transfer for small grids, adaptive strips for large; raw state
 planes + host finalize when state_dir is set), the result band, the
 GeoTIFF output, and the PCRT checkpoint must match the CPU oracle and
-support resume. PCR_PACK_MAX_BYTES forces the strip path at test sizes.
+support resume. Lowering pipeline.PACK_MAX_BYTES forces the strip path
+at test sizes.
 """
 
 import os
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 
 import pcr_tpu as pcr
+from pcr_tpu.engine import pipeline as pipeline_mod
 from pcr_tpu.io.geotiff import read_geotiff_band
 from conftest import make_grid_config, make_cloud
 
@@ -37,7 +39,8 @@ def _run(gc, spec, clouds, mode, state_dir="", out="", resume=False):
 def test_finalize_path_matches_oracle(tmp_path, monkeypatch, packed,
                                       with_state):
     if not packed:
-        monkeypatch.setenv("PCR_PACK_MAX_BYTES", "10000")   # force strips
+        # force strips
+        monkeypatch.setattr(pipeline_mod, "PACK_MAX_BYTES", 10000)
     gc = make_grid_config(w=150.0, h=120.0)
     gc.tile_width = gc.tile_height = 64
     gc.compute_dimensions()
@@ -71,7 +74,7 @@ def test_finalize_path_matches_oracle(tmp_path, monkeypatch, packed,
 def test_streamed_state_multi_reduction(tmp_path, monkeypatch):
     """Two reductions with different state widths through the strip+state
     path: per-spec strip heights differ, checkpoints land per-spec."""
-    monkeypatch.setenv("PCR_PACK_MAX_BYTES", "10000")
+    monkeypatch.setattr(pipeline_mod, "PACK_MAX_BYTES", 10000)
     gc = make_grid_config(w=100.0, h=100.0)
     specs = [pcr.ReductionSpec(value_channel="v", type=RT.Average,
                                output_band_name="avg"),
@@ -97,11 +100,9 @@ def test_streamed_state_multi_reduction(tmp_path, monkeypatch):
 
 
 def test_gauss_corr_residue_flush():
-    """Sub-cutoff Gaussian weight-sum residues (the corr-cancellation
-    pass leaves +-1e-12-scale mass when XLA's factor rounding differs
-    between main and corr rows — observed on chip, round 5) must
-    finalize to the empty-cell NaN, while legit >=1e-6 deposits are
-    untouched. Covers finalize_band, the strips/packed programs (via
+    """Sub-cutoff Gaussian weight-sum residues (+-1e-12-scale float mass
+    that no legitimate >=1e-6 deposit can leave) must finalize to the
+    empty-cell NaN, while legit >=1e-6 deposits are untouched. Covers finalize_band, the strips/packed programs (via
     pipeline finalize), and fetch_state (PCRT checkpoints)."""
     gc = make_grid_config(w=16.0, h=16.0)
     spec = pcr.gaussian_splat_spec("v", default_sigma=1.0)

@@ -38,8 +38,8 @@ class TestLzw:
 
 class TestExternalInterop:
     """Read fixtures written by Pillow/libtiff — NOT this library's
-    writer (reference reads any GDAL flavor, grid_io.cpp:372-497;
-    VERDICT r4 #3). Regenerate with tests/data/make_external_fixtures.py
+    writer (reference reads any GDAL flavor, grid_io.cpp:372-497).
+    Regenerate with tests/data/make_external_fixtures.py
     (deterministic, seed 0)."""
 
     @staticmethod

@@ -1,6 +1,6 @@
 """Out-of-core accelerator path (OutOfCoreTpuEngine).
 
-VERDICT round-1 item #5: with a small gpu_memory_budget the accelerator
+With a small gpu_memory_budget the accelerator
 pipeline must keep full state off-device and stage row bands, producing
 results that match the resident engine exactly (banding preserves both the
 per-cell contribution sets and their accumulation order).
@@ -114,8 +114,8 @@ def test_multi_reduction_banded_with_resume(tmp_path):
 
 
 def test_big_grid_small_budget_matches_cpu_oracle():
-    """The VERDICT 'done' case: 8192^2 grid, small budget, sparse cloud —
-    banded accelerator result equals the CPU oracle."""
+    """8192^2 grid, small budget, sparse cloud: the banded accelerator
+    result equals the CPU oracle."""
     gc = make_grid_config(w=8192.0, h=8192.0, tile=512)
     specs = [ReductionSpec(value_channel="v", type=RT.Average)]
     clouds = [make_cloud(20000, seed=7, w=8192.0, h=8192.0)]
@@ -140,12 +140,12 @@ def test_chunk_size_honored():
                                atol=1e-6, equal_nan=True)
 
 
-# -- untiled (single-tile) grids: the round-2 hole --------------------------
+# -- untiled (single-tile) grids ----------------------------------------------
 # An over-budget grid whose default 4096^2 tile covers it entirely used to
 # slip through banding and run fully resident (or raise an untyped error).
 # Untiled grids now band on raw GAUSS_ROW_BLOCK-aligned rows, duplicating
-# each glyph entry into every band its footprint touches (VERDICT r2 #7;
-# reference analogue: tile_manager.cpp:183-414).
+# each glyph entry into every band its footprint touches (reference
+# analogue: tile_manager.cpp:183-414).
 
 def untiled_grid(n=600.0):
     gc = make_grid_config(w=n, h=n)

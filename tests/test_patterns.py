@@ -75,7 +75,7 @@ class TestExactPatterns:
 
     def test_text(self, mode):
         gc = gen.make_grid_config(40, 15)
-        cloud, exp = gen.generate_text(gc, "TPU", value_text=7.0,
+        cloud, exp = gen.generate_text(gc, "GPU", value_text=7.0,
                                        value_background=1.0)
         band = run(gc, cloud, RT.Average, mode)
         np.testing.assert_allclose(band, exp, atol=1e-6)

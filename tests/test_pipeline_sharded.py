@@ -1,6 +1,6 @@
 """Multi-chip Pipeline lifecycle tests on the 8-device virtual CPU mesh.
 
-VERDICT round-1 item #2: the full user-facing Pipeline lifecycle
+The full user-facing Pipeline lifecycle
 (create → ingest → resume → finalize → GeoTIFF) must run sharded over a
 ('dp', 'sp') mesh and match the CPU oracle — all three glyphs and the
 sum/max/argmax reduction families. Mirrors the reference lifecycle of
@@ -95,21 +95,24 @@ def test_gaussian_rotated_matches_cpu():
     assert_bands_match(got, want, 1, atol=2e-5)
 
 
-def test_gaussian_rotated_pallas_interpret_matches_cpu(monkeypatch):
-    """The packed rotated splat (pallas_rotp) on a mesh: on CPU devices
-    the pallas mode resolves to 'off', which skips the production rotp
-    staging route entirely — force interpret mode so the mesh planner
-    facade runs _prepare_gaussian_rotp (arena-free checkout, nsub-floor
-    convergence across cells via _NSUB_POS['pallas_rotp'])."""
-    monkeypatch.setenv("PCR_PALLAS", "interpret")
+def test_gaussian_window_per_point_sigma_matches_cpu():
+    """Per-point sigmas on a mesh: the whole cloud takes one Gaussian form
+    (the window form, since small sigmas bite the product cutoff) and
+    every shard compiles the same program (common rmax floor), even where
+    a shard's own points alone would pick the separable form."""
     gc = make_grid_config()
-    spec = pcr.gaussian_splat_spec("v", default_sigma_x=2.0,
-                                   default_sigma_y=0.8,
-                                   default_rotation=0.6,
+    spec = pcr.gaussian_splat_spec("v", sigma_x_channel="s",
+                                   sigma_y_channel="s",
                                    max_radius_cells=7.0)
-    clouds = [make_cloud(1500, seed=3)]
-    want = run_pipeline(cpu_config(gc, [spec]), clouds)
-    got = run_pipeline(mesh_config(gc, [spec]), clouds)
+    c = make_cloud(1500, seed=3)
+    rng = np.random.default_rng(3)
+    # small sigmas only in the top rows: the other shards see sigma >= 2
+    sig = np.where(c.y_array() > 80.0, rng.uniform(0.5, 1.0, 1500),
+                   rng.uniform(2.0, 2.5, 1500)).astype(np.float32)
+    c.add_channel("s", pcr.DataType.Float32)
+    c.set_channel_array_f32("s", sig)
+    want = run_pipeline(cpu_config(gc, [spec]), [c])
+    got = run_pipeline(mesh_config(gc, [spec]), [c])
     assert_bands_match(got, want, 1, atol=2e-5)
 
 
@@ -141,8 +144,7 @@ def test_multi_tile_home_clip_matches_cpu():
 
 def test_multi_tile_point_families_match_cpu():
     """Multi-tile grids on a mesh: Max/MostRecent/Average point families
-    run the partitioned per-shard engines (round-5 fallback-hole close;
-    VERDICT r4 #2) and match the CPU oracle."""
+    run the partitioned per-shard engines and match the CPU oracle."""
     gc = make_grid_config(tile=32)
     assert gc.total_tiles() > 1
     clouds = [make_cloud(5000, seed=20, channels=("v", "t")) for _ in (0,)]
@@ -167,11 +169,10 @@ def test_multi_tile_uses_partitioned_engine():
     assert {s for s, _ in staged} == {eng.nshards - 1}
 
 
-def test_multi_tile_pallas_interpret_matches_cpu(monkeypatch):
-    """Partitioned engines with the Pallas kernels (interpret mode):
-    the kernels' home-tile clips compute tile rows in the global frame
-    via the shard view's row_offset."""
-    monkeypatch.setenv("PCR_PALLAS", "interpret")
+def test_multi_tile_glyph_forms_match_cpu():
+    """Partitioned engines with both Gaussian forms and lines: every
+    update's home-tile clip computes tile rows in the global frame via the
+    shard view's row_offset."""
     gc = make_grid_config(tile=32)
     specs = [
         pcr.gaussian_splat_spec("v", default_sigma=2.0,
@@ -190,8 +191,8 @@ def test_multi_tile_pallas_interpret_matches_cpu(monkeypatch):
 
 
 def test_memory_budget_with_mesh_raises_typed_error():
-    """gpu_memory_budget + mesh is a typed error, not a warn-and-ignore
-    (VERDICT r4 #2): state is already 1/N-sharded per chip."""
+    """gpu_memory_budget + mesh is a typed error, not a warn-and-ignore:
+    state is already 1/N-sharded per device."""
     gc = make_grid_config()
     cfg = mesh_config(gc, point_specs())
     cfg.gpu_memory_budget = 1 << 20
@@ -344,16 +345,12 @@ def test_progress_and_stats_on_mesh():
     assert seen and seen[0].points_processed == 1000
 
 
-def test_rotp_shard_boundary_straddler(monkeypatch):
+def test_rotated_shard_boundary_straddler():
     """Rotated Gaussians whose home tile starts at/after a shard's end
-    (straddlers routed for their footprint overlap) must stage as dead
-    windows, not index past the rotp bucketing (round-5 review: the native
-    histogram wrote out of bounds — undefined behavior that sometimes
-    segfaults, sometimes silently corrupts, so this test validates the
-    dead-window semantics rather than relying on a crash). Geometry: local H_pad == H/shards,
-    tile rows coinciding with shard boundaries, centers within r below
-    the boundary."""
-    monkeypatch.setenv("PCR_PALLAS", "interpret")
+    (straddlers routed for their footprint overlap) must paint nothing on
+    that shard: the window form's home-tile clip drops every cell there.
+    Geometry: tile rows coinciding with shard boundaries, centers within
+    r below the boundary."""
     bbox = pcr.BBox()
     bbox.min_x, bbox.min_y, bbox.max_x, bbox.max_y = 0.0, 0.0, 64.0, 1024.0
     gc = pcr.GridConfig()

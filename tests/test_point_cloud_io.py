@@ -296,8 +296,7 @@ class TestExternalLasFixture:
     generator (tests/data/make_las_fixture.py — pure struct/numpy
     following the ASPRS spec, not this library's writer), the stand-in
     for a real public-domain tile in this zero-egress environment
-    (reference system test: scripts/data/test_dc_lidar.py:57-103).
-    VERDICT r4 #9."""
+    (reference system test: scripts/data/test_dc_lidar.py:57-103)."""
 
     @staticmethod
     def _fixture():

@@ -164,7 +164,7 @@ class TestFinalizeArrays:
 
 
 class TestCustomReduction:
-    """User-provided ops via register_custom_reduction — the TPU-native
+    """User-provided ops via register_custom_reduction — the runtime
     analogue of the reference's compile-time template path
     (Accumulator::accumulate<Op>, accumulator.cpp:61-99; the type-erased
     registry returns nullptr for Custom, reduction_registry.h:75)."""

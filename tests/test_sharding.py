@@ -1,7 +1,7 @@
 """Multi-chip sharding tests on the 8-device virtual CPU mesh.
 
 Validates that the shard_map ingest steps (dp over points x sp over grid
-rows, collectives over ICI) produce results identical to the single-device
+rows, with collectives) produce results identical to the single-device
 oracle. Runs on 8 virtual CPU devices (conftest sets
 xla_force_host_platform_device_count=8)."""
 
